@@ -56,7 +56,7 @@ pq.add_batch(ids, base)
 pq.build()
 print("  top hit:", pq.search(q, 3)[0].id)
 
-section("4. HNSW — native C++ graph build, TPU beam search")
+section("4. HNSW — native C++ graph build, device beam search")
 from pyrope_tpu.native import native_available  # noqa: E402
 
 print("  native builder available:", native_available())

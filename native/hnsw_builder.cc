@@ -1,6 +1,6 @@
 // Native HNSW graph builder.
 //
-// The TPU runs every query (batched beam search in pyrope_tpu/index/hnsw.py),
+// The device runs every query (batched beam search in pyrope_tpu/index/hnsw.py),
 // but graph CONSTRUCTION is inherently sequential — insert i depends on the
 // graph state after insert i-1 — so it belongs on the host, in native code.
 // This is the rebuild's analog of the reference's compiled-engine insert path

@@ -1,4 +1,4 @@
-"""pyrope_tpu — a TPU-native vector index & query engine.
+"""pyrope_tpu — an accelerator-native vector index & query engine.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the native C# vector
 engine inside takurot/Pyrope (reference: /root/reference
@@ -44,8 +44,8 @@ __all__ = [
 
 def __getattr__(name):
     # ALL index classes import lazily: importing the bare package must not
-    # pull in jax (sidecar/CLI processes would otherwise initialize the TPU
-    # backend and contend for the exclusive chip with the serving process).
+    # pull in jax (sidecar/CLI processes would otherwise initialize the
+    # accelerator backend and contend for the card with the serving process).
     lazy = {
         "FlatIndex": "pyrope_tpu.index.flat",
         "DeviceFlatIndex": "pyrope_tpu.index.device_flat",

@@ -3,7 +3,7 @@
 Python analog of the reference's ``IVectorIndex``
 (ref: src/Pyrope.GarnetServer/Vector/IVectorIndex.cs:14-31:
  Add/Upsert/Delete/Search/Build/Snapshot/Load/GetStats) plus the batched
-query surface that is the TPU engine's first-class entry point, and
+query surface that is the device engine's first-class entry point, and
 ``Scan`` used for Delta compaction (ref: BruteForceVectorIndex.cs:250-273).
 """
 
@@ -84,7 +84,7 @@ class VectorIndex(abc.ABC):
         options: SearchOptions = DEFAULT_SEARCH_OPTIONS,
     ) -> list[list[SearchResult]]:
         """Batched k-NN query: queries [B, D] -> per-query hits sorted by
-        score descending. The batched form is the hot path on TPU."""
+        score descending. The batched form is the device hot path."""
 
     def search(
         self,

@@ -1,4 +1,4 @@
-"""HNSW graph index: host-built hierarchy, TPU batched beam search.
+"""HNSW graph index: host-built hierarchy, batched device beam search.
 
 Rebuild of the reference's ``HnswVectorIndex``
 (ref: src/Pyrope.GarnetServer/Vector/HnswVectorIndex.cs):
@@ -13,7 +13,7 @@ Rebuild of the reference's ``HnswVectorIndex``
 - reference gap closed: Snapshot/Load are real here (ref no-ops :371-372,
   SURVEY §5.4)
 
-TPU redesign of the query path (the reference's sequential best-first
+Device redesign of the query path (the reference's sequential best-first
 SearchLayer :281-325 is unvectorizable): a **batched beam search** with fixed
 iteration count — each step expands the top-E unexpanded pool entries,
 gathers their adjacency rows, masks visited/duplicate/invalid candidates,
@@ -84,7 +84,7 @@ def beam_search_body(
     (pyrope_tpu/parallel/sharded_hnsw.py) can shard_map the same program.
 
     ``x`` is the BEAM slab (any dtype — the hot gathers ride it, so bf16
-    halves the HBM bytes of the gather-bound walk); ``x_exact`` is the fp32
+    halves the device-memory bytes of the gather-bound walk); ``x_exact`` is the fp32
     slab used to re-score the final pool when ``rerank`` (bf16 rounding is
     on the order of inter-NN margins — the PQ rerank-slab lesson — so beam
     membership may be approximate but the returned top-k ordering and
@@ -106,22 +106,26 @@ def beam_search_body(
         candidates in the top_k concat) — so re-scored nodes can never
         re-enter, and re-scoring a never-admitted node just re-drops it.
         Cost: a [B, C, pool] compare per step — no [B, N] visited carry
-        and, critically, no per-step SCATTER (the TPU scatter lowering is
-        the classic cliff; the bitmap variant also allocates B x N bytes,
-        1 GB at 1M x b1024).
+        and, critically, no per-step SCATTER into a [B, N] array (the
+        bitmap variant allocates B x N bytes, 1 GB at 1M x b1024).
       'bitmap' — the original [B, N] visited array (scatter+gather).
     """
     def fn(x, x_exact, sqnorm, adj0, adj_up, alive, entry, q):
         b, d = q.shape
         qf = q.astype(jnp.float32)
         qq = jnp.sum(qf * qf, axis=-1)
-        qb = qf.astype(x.dtype)  # beam-dtype query: bf16 dots ride the MXU
+        qb = qf.astype(x.dtype)  # beam-dtype query: bf16 dots on tensor cores
+        # an fp32 beam slab scores at HIGHEST (the exact rerank below must
+        # agree with the walk); a bf16 slab keeps the fast default
+        prec = jax.lax.Precision.HIGHEST if x.dtype == jnp.float32 else None
 
         def node_scores(ids):
             """ids [B, C] -> metric scores [B, C]; -inf for id < 0."""
             safe = jnp.maximum(ids, 0)
             vecs = jnp.take(x, safe, axis=0)            # [B, C, D]
-            dots = jnp.einsum("bcd,bd->bc", vecs, qb, preferred_element_type=jnp.float32)
+            dots = jnp.einsum("bcd,bd->bc", vecs, qb,
+                              preferred_element_type=jnp.float32,
+                              precision=prec)
             if metric == Metric.L2:
                 sq = jnp.take(sqnorm, safe, axis=0)
                 s = -jnp.maximum(qq[:, None] - 2.0 * dots + sq, 0.0)
@@ -265,8 +269,8 @@ def beam_search_body(
             # carry beam-dtype rounding, the returned ordering/scores not
             safe = jnp.maximum(pool_ids, 0)
             vecs = jnp.take(x_exact, safe, axis=0)          # [B, pool, D]
-            # HIGHEST: on TPU the default matmul runs fp32 operands in bf16
-            # passes — without it the rerank reintroduces exactly the
+            # HIGHEST: a default-precision fp32 matmul may run in TF32 on
+            # the GPU — without it the rerank reintroduces exactly the
             # rounding it exists to remove (CLAUDE.md exact-path invariant)
             dots = jnp.einsum(
                 "bpd,bd->bp", vecs, qf,
@@ -329,8 +333,8 @@ class HnswIndex(VectorIndex):
         into an empty index: 'incremental' = the sequential native C++
         builder (the reference's insert algorithm); 'bootstrap' = the
         device-bootstrapped pipeline (ops/hnsw_bootstrap.py — every
-        distance eval an MXU matmul; cuts the 1M build from ~33 min of
-        single-core inserts to device minutes); 'auto' = bootstrap at
+        distance eval a device matmul instead of single-core host
+        inserts); 'auto' = bootstrap at
         n >= 200k, incremental below. Incremental per-row ``add`` is
         unaffected. Bootstrap requires ``neighbor_heuristic`` (it IS the
         selection rule); closest-M indexes fall back to incremental."""
@@ -355,11 +359,9 @@ class HnswIndex(VectorIndex):
         self.build_mode = build_mode
         self.visited_mode = visited_mode
         # 'float32' (default): one fp32 slab end-to-end. 'bfloat16' walks a
-        # bf16 beam slab and re-scores the final pool fp32 — measured a WASH
-        # at 1M x 128 on the v5e (same-day A/B: b64 3,645 vs 4,041 QPS, b256
-        # 4,489 vs 4,117, ef200 2,302 vs 2,385; recall parity) while costing
-        # 1.5x slab memory (bf16 copy + resident fp32 rerank slab): with the
-        # early-exit loops the walk is step-latency-bound, not gather-bound.
+        # bf16 beam slab and re-scores the final pool fp32, at 1.5x slab
+        # memory (bf16 copy + resident fp32 rerank slab); whether it pays
+        # on the GPU has not been measured.
         self.search_dtype = search_dtype
         self._ml = 1.0 / math.log(self.m)  # λ = 1/ln(m), ref :351-357
         self._rng = np.random.default_rng(seed)

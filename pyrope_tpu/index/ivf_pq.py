@@ -15,10 +15,10 @@ Rebuild of the reference's ``IvfPqVectorIndex``
   stage refines the ADC shortlist (the reference's ADC scores are final,
   the source of its recall ceiling — :152-199).
 
-TPU layout: codes live cluster-major in a contiguous [N_pad, M] uint8 slab
+Device layout: codes live cluster-major in a contiguous [N_pad, M] uint8 slab
 (CSR offsets + lens); probing a list is a contiguous dynamic-slice; the ADC
 table is one einsum and accumulation is a flat take_along_axis gather.
-HBM holds only codes + centroids + codebooks (the memory-parity state); raw
+Device memory holds only codes + centroids + codebooks (the memory-parity state); raw
 fp32 rows are retained host-side for rebuild/compaction.
 
 Metrics: L2 exact-ADC (‖q−x̂‖² = ‖q_res−r̂‖²); IP via q·c + q·r̂ (the dot
@@ -137,7 +137,8 @@ def adc_scan_probed_lists(
     if metric != Metric.L2:
         # dot table is residual-free: q·r̂ uses the same table per probe
         ip_table = adc_ip_table(q, codebooks)       # [B, M, ksub]
-        qdotc = jnp.dot(q, cents.T, preferred_element_type=jnp.float32)
+        qdotc = jnp.dot(q, cents.T, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST)
 
     for p in range(nprobe):
         c_ids = probe[:, p]
@@ -236,10 +237,10 @@ def _ivfpq_dense_exact_fn(
     the dense path skips ADC entirely and exact-scores every probed row
     directly (one matmul + mask + top-k). This strictly dominates
     ADC-shortlist→rerank in BOTH recall (no shortlist misses) and speed: the
-    shortlist's wide top_k(R=refine·k) over [B, N] costs ~28x a top_k(k)
-    (measured 217 ms vs 7.8 ms at B=1024, N=100k on a v5e — selection, not
-    scoring, dominates). ADC still earns its keep in probe mode at large N
-    where the gathers touch M code bytes per row instead of 4·D.
+    shortlist's wide top_k(R=refine·k) over [B, N] costs far more than a
+    top_k(k) (selection, not scoring, dominates). ADC still earns its keep
+    in probe mode at large N where the gathers touch M code bytes per row
+    instead of 4·D.
 
     Precision matches ``rerank_exact``: a bf16 slab is promoted to fp32 in
     the matmul operand and the contraction runs fp32 HIGHEST, so the only
@@ -321,79 +322,15 @@ def _ivfpq_refine_search_fn(
 # isolation experiment, perfect-shortlist rescore).
 
 
-def _sq8_probe_tq(q, cents, probe, *, transposed: bool, window: int = 0):
-    """Masked centroid-dot table for the fused sq8res kernels: qc = q·cᵀ
-    (fp32 HIGHEST) where the cluster is probed, MASK_SENT where not. One
-    matmul then carries BOTH the probe mask and the exact qc term (see
-    ops/pallas_scan._ivf_sq8_scan_kernel). Returns [B, Kp] (or transposed
-    [Kp, B] for the windowed kernel, Kp from padded_probe_width)."""
-    from pyrope_tpu.ops.pallas_scan import MASK_SENT, padded_probe_width
-
-    b = q.shape[0]
-    qc = jnp.dot(q.astype(jnp.float32), cents.T,
-                 preferred_element_type=jnp.float32,
-                 precision=jax.lax.Precision.HIGHEST)          # [B, Kp0]
-    sel = jnp.take_along_axis(qc, probe, axis=1)               # [B, nprobe]
-    if transposed:
-        kp = padded_probe_width(cents.shape[0], window)
-        tq = jnp.full((kp, b), MASK_SENT, jnp.float32)
-        return tq.at[probe, jnp.arange(b)[:, None]].set(sel)
-    kp = int(round_up(cents.shape[0], 128))
-    tq = jnp.full((b, kp), MASK_SENT, jnp.float32)
-    return tq.at[jnp.arange(b)[:, None], probe].set(sel)
-
-
-@functools.lru_cache(maxsize=None)
-def _ivfpq_dense_sq8_fn(
-    metric: Metric, k: int, nprobe: int, windowed: bool = False,
-    probe_metric: Metric | None = None,
-):
-    """Fused Pallas dense scan of the residual-SQ8 rerank slab (full-scan
-    semantics; max_scans budgets route to the XLA fallback below)."""
-    from pyrope_tpu.ops.pallas_scan import (
-        PALLAS_IVF_WINDOW,
-        pallas_ivf_sq8_topk,
-        pallas_ivf_sq8_topk_windowed,
-        pick_row_tile,
-    )
-
-    @jax.jit
-    def fn(cents, cvalid, codes8, mins, scales, sq8, alive, offsets, lens,
-           crow, tile_clo, q, max_scans):
-        from pyrope_tpu.index.ivf_flat import rank_probes
-
-        probe, _, _ = rank_probes(
-            q, cents, cvalid, offsets, lens, nprobe, max_scans,
-            probe_metric or metric, None,
-        )
-        b = q.shape[0]
-        # fp32-based tile: must match the grid tile_clo was built for
-        rt = pick_row_tile(codes8.shape[0], codes8.shape[1], "float32")
-        if windowed:
-            tq_t = _sq8_probe_tq(q, cents, probe, transposed=True,
-                                 window=PALLAS_IVF_WINDOW)
-            return pallas_ivf_sq8_topk_windowed(
-                q, codes8, mins, scales, sq8, alive, crow, tq_t, tile_clo,
-                k, metric, row_tile=rt, batch_tile=min(128, b),
-            )
-        tq = _sq8_probe_tq(q, cents, probe, transposed=False)
-        return pallas_ivf_sq8_topk(
-            q, codes8, mins, scales, sq8, alive, crow, tq, k, metric,
-            row_tile=rt, batch_tile=min(128, b),
-        )
-
-    return fn
-
-
 @functools.lru_cache(maxsize=None)
 def _ivfpq_dense_sq8_xla_fn(
     metric: Metric, k: int, nprobe: int,
     probe_metric: Metric | None = None,
 ):
-    """XLA dense scan of the residual-SQ8 slab (Pallas-ineligible shapes /
-    max_scans budgets): the same q·x̂ decomposition as the kernel —
-    qc[b, crow] + (q @ codesᵀ)·scale + (Σq)·min — with [B, N] transients
-    (the DENSE_MAX_ELEMS guard applies, like every XLA dense path)."""
+    """XLA dense scan of the residual-SQ8 slab: the decomposition
+    q·x̂ = qc[b, crow] + (q @ codesᵀ)·scale + (Σq)·min, with [B, N]
+    transients (the dense_max_elems guard applies, like every XLA dense
+    path)."""
 
     @jax.jit
     def fn(cents, cvalid, codes8, mins, scales, sq8, alive, offsets, lens,
@@ -722,26 +659,10 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
                 cdot[:n] = compute_cdot(
                     self._codes, crow[:n], self._centroids, self.pq.codebooks
                 )
-        # windowed-Pallas eligibility for wide cluster tables (see
-        # pyrope_tpu/index/ivf_flat.py _host_tables — same mechanism)
-        tile_clo, win_ok = None, False
-        from pyrope_tpu.ops.pallas_scan import (
-            PALLAS_IVF_MAX_KPAD,
-            padded_probe_width,
-            pick_row_tile,
-            tile_cluster_windows,
-        )
-
-        if kpad > PALLAS_IVF_MAX_KPAD:
-            tile_clo, win_ok = tile_cluster_windows(
-                crow, n, npad, pick_row_tile(npad, self.dim, "float32"),
-                padded_probe_width(kpad),
-            )
         return {
             "k": kc, "kpad": kpad, "l_pad": l_pad, "n": n, "npad": npad,
             "alive": alive, "cents": cents, "cvalid": cvalid,
             "offs": offs, "lens": lens, "crow": crow, "pos": pos, "cdot": cdot,
-            "tile_clo": tile_clo, "win_ok": win_ok,
         }
 
     def _dev_common(self, t: dict) -> dict:
@@ -755,9 +676,6 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
             "crow": jnp.asarray(t["crow"]),
             "pos": jnp.asarray(t["pos"]),
             "cdot": jnp.asarray(t["cdot"]),
-            "tile_clo": (jnp.asarray(t["tile_clo"])
-                         if t.get("tile_clo") is not None else None),
-            "win_ok": t.get("win_ok", False),
             "l_pad": t["l_pad"],
             "k_actual": t["k"],
             # consistent row->id table for this slab (see IvfFlatIndex note)
@@ -808,7 +726,7 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
                 self._dev["scales"] = upload_rows(sc, pad_to=npad)
                 self._dev["sq8norm"] = upload_rows(sq8, pad_to=npad)
             else:
-                # raw slab for the exact rerank stage (bf16 halves HBM;
+                # raw slab for the exact rerank stage (bf16 halves the bytes;
                 # sqnorms are computed from the fp32 truth so L2 stays exact
                 # up to the gathered operand's storage rounding)
                 dt = jnp.bfloat16 if self.refine_storage == "bf16" else jnp.float32
@@ -823,10 +741,8 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
     def _resolve_scan(self, dev: dict, batch: int, nprobe: int, ms: int) -> str:
         """Resolve (batch, nprobe, max_scans) to the kernel that will run:
         'probe-adc', 'probe-adc+rerank[-sq8]', 'dense-adc',
-        'dense-exact-xla', 'dense-exact-pallas[-win]', or
-        'dense-sq8-{xla,pallas,pallas-win}' (refine_storage="sq8res"). The
-        SINGLE source of routing truth, shared by _run_device (dispatch)
-        and describe_scan (bench labeling).
+        'dense-exact-xla', or 'dense-sq8-xla' (refine_storage="sq8res"). The SINGLE source of routing truth,
+        shared by _run_device (dispatch) and describe_scan (bench labeling).
 
         With ``refine > 0`` the two scan modes return DIFFERENT hit sets
         (dense exact-scans the rerank slab; probe reranks an ADC shortlist),
@@ -834,59 +750,31 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         results batch-invariant for a given index. With ``refine == 0`` both
         modes score identical ADC sums and auto may pick by traffic."""
         from pyrope_tpu.index.ivf_flat import (
-            DENSE_MAX_ELEMS,
             DENSE_MAX_ROWS,
-            pallas_dense_ok,
+            dense_max_elems,
             pick_scan_mode,
         )
-        from pyrope_tpu.ops.pallas_scan import PALLAS_IVF_MAX_KPAD
 
-        search_metric = (
-            Metric.INNER_PRODUCT if self.metric == Metric.COSINE
-            else self.metric
-        )
-        # Fused-Pallas eligibility of the rerank-slab scan (refine>0 dense):
-        # that kernel streams tiles with a [B, k] running top-k, so the
-        # DENSE_MAX_ELEMS OOM guard (which protects the XLA fallback's
-        # [B, npad] transients) must not demote its batches.
+        sq8 = self.refine_storage == "sq8res"
         npad = dev["codes"].shape[0]
-        p_ok = self.refine > 0 and pallas_dense_ok(
-            "auto", search_metric, None, npad,
-            dev["cents"].shape[0], batch, ms,
-            self._codes.shape[0], win_ok=dev.get("win_ok", False),
-            dim=self.dim,
-        )
         if self.scan_mode == "auto" and self.refine > 0:
-            # Above DENSE_MAX_ROWS the XLA dense fallback's [B, npad]
-            # transient is prohibitive, but the fused Pallas kernel streams
-            # tiles — so Pallas-eligible slabs stay dense at ANY scale
-            # (measured 1M clustered nlist=1000 b1024, same-day:
-            # dense-exact-pallas-win 33.5k QPS recall 0.9996 vs
-            # probe-adc+rerank 5.7k at 0.9660 — exact-scanning the probed
-            # clusters also beats the ADC shortlist on recall).
-            # Batch-invariance holds: p_ok's shape terms are per-index and
-            # its batch term accepts every bucketed dispatch batch.
-            mode = "dense" if (npad <= DENSE_MAX_ROWS or p_ok) else "probe"
-            if not p_ok and batch * npad > DENSE_MAX_ELEMS:
+            # Above DENSE_MAX_ROWS the XLA dense kernel's [B, npad]
+            # transient is prohibitive. Batch-invariance holds: the choice
+            # depends on the index size only.
+            mode = "dense" if npad <= DENSE_MAX_ROWS else "probe"
+            if batch * npad > dense_max_elems():
                 mode = "probe"  # OOM guard outranks batch-invariance
         else:
             mode = pick_scan_mode(
                 self.scan_mode, npad, nprobe, dev["l_pad"], batch=batch,
-                pallas_ok=p_ok,
             )
-        sq8 = self.refine_storage == "sq8res"
         if mode != "dense":
             if self.refine > 0:
                 return "probe-adc+rerank-sq8" if sq8 else "probe-adc+rerank"
             return "probe-adc"
         if self.refine == 0:
             return "dense-adc"
-        if not p_ok:
-            return "dense-sq8-xla" if sq8 else "dense-exact-xla"
-        win = dev["cents"].shape[0] > PALLAS_IVF_MAX_KPAD
-        if sq8:
-            return "dense-sq8-pallas-win" if win else "dense-sq8-pallas"
-        return "dense-exact-pallas-win" if win else "dense-exact-pallas"
+        return "dense-sq8-xla" if sq8 else "dense-exact-xla"
 
     def _run_device(self, dev: dict, q: jax.Array, top_k: int, nprobe: int, ms: int):
         """Dispatch the jitted query: pure ADC, or ADC-shortlist + exact
@@ -894,16 +782,6 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         search_metric = Metric.INNER_PRODUCT if self.metric == Metric.COSINE else self.metric
         probe_metric = Metric.L2 if self.metric == Metric.COSINE else self.metric
         path = self._resolve_scan(dev, q.shape[0], nprobe, ms)
-        if path in ("dense-sq8-pallas", "dense-sq8-pallas-win"):
-            fn = _ivfpq_dense_sq8_fn(
-                search_metric, top_k, nprobe,
-                windowed=path.endswith("-win"), probe_metric=probe_metric,
-            )
-            return fn(
-                dev["cents"], dev["cvalid"], dev["codes8"], dev["mins"],
-                dev["scales"], dev["sq8norm"], dev["alive"], dev["offsets"],
-                dev["lens"], dev["crow"], dev["tile_clo"], q, device_i32(ms),
-            )
         if path == "dense-sq8-xla":
             fn = _ivfpq_dense_sq8_xla_fn(
                 search_metric, top_k, nprobe, probe_metric=probe_metric,
@@ -924,34 +802,6 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
                 dev["offsets"], dev["lens"], dev["codebooks"],
                 dev["codes8"], dev["mins"], dev["scales"], dev["sq8norm"],
                 dev["crow"], q, device_i32(ms),
-            )
-        if path == "dense-exact-pallas-win":
-            from pyrope_tpu.index.ivf_flat import _ivf_dense_pallas_win_fn
-
-            # fused Pallas dense scan of the rerank slab; bf16 storage is
-            # promoted to fp32 in-kernel so scores match the XLA
-            # dense-exact path (see _ivfpq_dense_exact_fn)
-            fn = _ivf_dense_pallas_win_fn(
-                search_metric, top_k, nprobe, promote=True,
-                probe_metric=probe_metric,
-            )
-            return fn(
-                dev["cents"], dev["cvalid"], dev["xraw"],
-                dev["xsqnorm"], dev["alive"], dev["offsets"],
-                dev["lens"], dev["crow"], dev["tile_clo"],
-                q, device_i32(ms),
-            )
-        if path == "dense-exact-pallas":
-            from pyrope_tpu.index.ivf_flat import _ivf_dense_pallas_fn
-
-            fn = _ivf_dense_pallas_fn(
-                search_metric, top_k, nprobe, promote=True,
-                probe_metric=probe_metric,
-            )
-            return fn(
-                dev["cents"], dev["cvalid"], dev["xraw"],
-                dev["xsqnorm"], dev["alive"], dev["offsets"],
-                dev["lens"], dev["crow"], q, device_i32(ms),
             )
         if path == "dense-exact-xla":
             fn = _ivfpq_dense_exact_fn(
@@ -1010,8 +860,8 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         recorded in bench rows so an 'IVF-PQ' QPS number always names its
         code path (VERDICT r2: the 100k dense rows measure an exact bf16
         scan of the rerank slab, not ADC): 'probe-adc', 'probe-adc+rerank',
-        'dense-adc', 'dense-exact-xla', 'dense-exact-pallas', or
-        'dense-exact-pallas-win' (max_scans None = full scan)."""
+        'dense-adc', 'dense-exact-xla', or 'dense-sq8-xla' (max_scans None =
+        full scan)."""
         if not self._built:
             return "buffer"
         dev = self._sync()

@@ -1,6 +1,6 @@
 """Native (C++) host-side components, loaded via ctypes.
 
-The TPU owns every query kernel; these cover the inherently-sequential
+The device owns every query kernel; these cover the inherently-sequential
 host work the reference keeps in its compiled engine — currently the HNSW
 graph builder (ref: HnswVectorIndex.cs insert path; see
 native/hnsw_builder.cc). The shared library is compiled from the committed

@@ -1,9 +1,18 @@
-"""Lazy ctypes build/load of the native library."""
+"""Lazy ctypes build/load of the native library.
+
+The library is built from the committed sources on first use, for the
+host it runs on: no ``-march=native``, and the file name carries a hash
+of the sources, the compiler flags and the machine type, so a build left
+in the directory by another host or another source version is never
+loaded.
+"""
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 from pathlib import Path
@@ -11,7 +20,7 @@ from typing import Optional
 
 _SRC_DIR = Path(__file__).resolve().parent.parent.parent / "native"
 _SOURCES = ["hnsw_builder.cc"]
-_LIB_NAME = "libpyrope_native.so"
+_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: "Optional[ctypes.CDLL]" = None
@@ -25,24 +34,32 @@ def _build_dir() -> Path:
     return _SRC_DIR / "build"
 
 
+def lib_name(srcs: "list[Path]") -> str:
+    """File name keyed by the sources' bytes, the flags and the machine."""
+    h = hashlib.sha256()
+    for s in srcs:
+        h.update(s.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(platform.machine().encode())
+    return f"libpyrope_native-{h.hexdigest()[:16]}.so"
+
+
 def _compile() -> Optional[Path]:
-    out_dir = _build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / _LIB_NAME
     srcs = [_SRC_DIR / s for s in _SOURCES]
     if not all(s.exists() for s in srcs):
         return None
-    newest_src = max(s.stat().st_mtime for s in srcs)
-    if lib_path.exists() and lib_path.stat().st_mtime >= newest_src:
+    out_dir = _build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / lib_name(srcs)
+    if lib_path.exists():
         return lib_path
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17",
-        "-shared", "-fPIC",
-        "-o", str(lib_path),
-    ] + [str(s) for s in srcs]
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ["g++", *_FLAGS, "-o", str(tmp)] + [str(s) for s in srcs]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        tmp.replace(lib_path)  # atomic: concurrent builders never half-load
     except (subprocess.SubprocessError, FileNotFoundError, OSError):
+        tmp.unlink(missing_ok=True)
         return None
     return lib_path
 

@@ -1,8 +1,8 @@
-"""TPU compute ops: distance/score kernels, top-k, k-means, PQ, quantization.
+"""Device compute ops: distance/score kernels, top-k, k-means, PQ, quantization.
 
-This package is the TPU-native analog of the reference's SIMD kernel library
+This package is the accelerator analog of the reference's SIMD kernel library
 (ref: src/Pyrope.GarnetServer/Vector/VectorMath.cs) — per-row SIMD loops become
-batched MXU matmuls with fused masking and top-k selection.
+batched matmuls with fused masking and top-k selection.
 """
 
 from pyrope_tpu.ops.distance import normalize_rows, score_convention, score_matrix

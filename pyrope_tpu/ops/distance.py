@@ -2,8 +2,8 @@
 
 The reference computes one distance per (query, row) pair in SIMD loops
 (ref: Vector/VectorMath.cs — DotProduct :8-37, L2Squared :39-70, Cosine
-:102-125, unsafe unrolled variants :128-253). On TPU the whole [B, N] score
-matrix is one MXU matmul; L2 uses the ‖q‖² + ‖x‖² − 2·q·x expansion so the
+:102-125, unsafe unrolled variants :128-253). On the device the whole
+[B, N] score matrix is one matmul; L2 uses the ‖q‖² + ‖x‖² − 2·q·x expansion so the
 only O(B·N·D) work is the dot-product matmul.
 
 Score convention (higher is better), matching the reference
@@ -51,7 +51,7 @@ def score_matrix(
     reference's precomputed norms for cosine (ref: BruteForceVectorIndex.cs
     stores norms alongside vectors).
     ``compute_dtype``: dtype the matmul operands are cast to (e.g. bf16 for
-    MXU throughput); accumulation is always fp32.
+    tensor-core throughput); accumulation is always fp32.
     """
     metric = Metric.parse(metric)
     if compute_dtype is not None:
@@ -60,7 +60,7 @@ def score_matrix(
         precision = None
     else:
         qm, xm = q, x
-        # On TPU a default-precision fp32 matmul runs in bf16 passes (~3e-3
+        # A default-precision fp32 matmul may run in TF32 on the GPU (~1e-3
         # relative error) — unacceptable for an *exact* index. Pin full fp32.
         precision = jax.lax.Precision.HIGHEST
 
@@ -95,7 +95,7 @@ def rerank_exact(
 
     The refinement stage the reference's IVF-PQ lacks (its ADC scores are
     final, ref: IvfPqVectorIndex.cs:152-199 — the source of its recall
-    ceiling). On TPU this is one [B, R, D] gather + one einsum — cheap next
+    ceiling). On the device this is one [B, R, D] gather + one einsum — cheap next
     to the ADC scan, and it converts quantization error into ranking noise
     only within the shortlist.
 
@@ -109,8 +109,8 @@ def rerank_exact(
     vecs = jnp.take(x, safe, axis=0).astype(jnp.float32)     # [B, R, D]
     qf = q.astype(jnp.float32)
     # operands are fp32 here (even off a bf16 slab, post-cast) — pin HIGHEST
-    # or the MXU silently demotes the "exact" rerank to bf16 passes (the
-    # same class of bug fixed in ops/pallas_scan.py; CLAUDE.md invariant)
+    # or a default-precision fp32 matmul may silently demote the "exact"
+    # rerank to TF32 (CLAUDE.md invariant)
     dots = jnp.einsum("brd,bd->br", vecs, qf,
                       preferred_element_type=jnp.float32,
                       precision=jax.lax.Precision.HIGHEST)

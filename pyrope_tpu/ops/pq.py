@@ -6,7 +6,7 @@ Rebuild of the reference's ``ProductQuantizer``
 k-means with L2, 10 iterations, seed 42+m (:28-58); nearest-sub-centroid
 encode (:60-80); decode (:82-96); per-query L2² distance table (:98-120).
 
-On TPU: training reuses the blocked k-means matmul, encoding is an [N, ksub]
+On the device: training reuses the blocked k-means matmul, encoding is an [N, ksub]
 score matmul per subspace, and the ADC table is one einsum
 [B, M, sub] × [M, ksub, sub] -> [B, M, ksub].
 """
@@ -103,7 +103,7 @@ class ProductQuantizer:
 def _sub_scores(xblk, cents, cc, compute):
     """Nearest-sub-centroid score 2*q·c - ||c||^2 (argmax == L2 argmin).
     ``compute``: None = fp32 HIGHEST (bit-stable), else operand cast dtype
-    (bf16 is ~6x MXU throughput; the rerank stage absorbs the codebook
+    (bf16 runs on the tensor cores; the rerank stage absorbs the codebook
     perturbation — with rerank the ADC is only a shortlist ranker)."""
     if compute is None:
         d = jnp.einsum("bms,mks->mbk", xblk, cents,
@@ -233,8 +233,11 @@ def adc_l2_table(q: jax.Array, codebooks: jax.Array) -> jax.Array:
     b, d = q.shape
     m, ksub, sub = codebooks.shape
     qs = q.reshape(b, m, sub)
+    # HIGHEST: a default-precision fp32 einsum may run in TF32 on the GPU
+    # and round every table entry the one-hot lookups then copy exactly
     dots = jnp.einsum(
-        "bms,mks->bmk", qs, codebooks, preferred_element_type=jnp.float32
+        "bms,mks->bmk", qs, codebooks, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     )
     qq = jnp.sum(qs * qs, axis=-1)                    # [B, M]
     cc = jnp.sum(codebooks * codebooks, axis=-1)      # [M, ksub]
@@ -246,7 +249,9 @@ def adc_ip_table(q: jax.Array, codebooks: jax.Array) -> jax.Array:
     b, d = q.shape
     m, ksub, sub = codebooks.shape
     qs = q.reshape(b, m, sub)
-    return jnp.einsum("bms,mks->bmk", qs, codebooks, preferred_element_type=jnp.float32)
+    return jnp.einsum("bms,mks->bmk", qs, codebooks,
+                      preferred_element_type=jnp.float32,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def adc_accumulate(table: jax.Array, codes: jax.Array, *, impl: str = "onehot") -> jax.Array:
@@ -257,10 +262,10 @@ def adc_accumulate(table: jax.Array, codes: jax.Array, *, impl: str = "onehot") 
     (ref: IvfPqVectorIndex.cs:182-198 ADC accumulation loop).
 
     impl='onehot' re-expresses the table lookup as a one-hot × table matmul
-    per subspace — the classic TPU trick (PQTable / Quick-ADC lineage, see
-    PAPERS.md): TPUs have no fast per-lane gather, but the [L, ksub] one-hot
-    comparison is cheap VPU work and the contraction runs on the MXU.
-    impl='gather' is the direct take_along_axis form.
+    per subspace (PQTable / Quick-ADC lineage, see PAPERS.md): the
+    [L, ksub] one-hot comparison is cheap elementwise work and the
+    contraction is a matmul. impl='gather' is the direct take_along_axis
+    form.
     """
     b, m, ksub = table.shape
     if impl == "gather":
@@ -295,7 +300,7 @@ def adc_accumulate_shared(table: jax.Array, codes_all: jax.Array) -> jax.Array:
     Returns [B, N] = Σ_m table[b, m, codes_all[n, m]].
 
     Because the one-hot is per-row (not per-(query, row)) each subspace is
-    a single [B, ksub] × [ksub, N] MXU matmul over the whole slab — this is
+    a single [B, ksub] × [ksub, N] matmul over the whole slab — this is
     what makes the dense IVF-PQ scan one streaming pass instead of B
     replicated gathers. fp32 HIGHEST keeps it bit-faithful to a gather
     (one-hot rows select exactly one fp32 table entry).

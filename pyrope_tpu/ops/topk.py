@@ -1,9 +1,10 @@
 """Top-k selection and merge utilities.
 
 The reference keeps a per-query min-heap while scanning rows
-(ref: BruteForceVectorIndex.cs:291,333-334 PriorityQueue). On TPU we select
-over the whole masked score matrix with ``jax.lax.top_k``, and merge partial
-top-k sets (head/tail, per-shard) by concatenating then re-selecting.
+(ref: BruteForceVectorIndex.cs:291,333-334 PriorityQueue). On the device we
+select over the whole masked score matrix with ``jax.lax.top_k``, and merge
+partial top-k sets (head/tail, per-shard) by concatenating then
+re-selecting.
 """
 
 from __future__ import annotations
@@ -17,16 +18,16 @@ NEG_INF = jnp.float32(-jnp.inf)
 
 
 def parse_selection(selection: str) -> tuple[str, float]:
-    """'exact' | 'pallas' | 'approx[:<recall>]' | 'hybrid[:<R>]'
-    -> (mode, param): approx's param is its recall target; hybrid's is the
-    shortlist width R (0 = auto: max(64, next_pow2(4k))).
+    """'exact' | 'approx[:<recall>]' | 'hybrid[:<R>]' -> (mode, param):
+    approx's param is its recall target; hybrid's is the shortlist width R
+    (0 = auto: max(64, 4k)).
 
-    'pallas' = the fused scan+running-top-k kernel (ops/pallas_scan.py),
-    exact like 'exact'. 'hybrid' = bf16 Pallas scan keeps top-R, then an
-    fp32-HIGHEST rerank of the R rows restores exact scores/order at
-    near-bf16 scan cost (the PQ-refine pattern applied to the exact path);
-    indexes route both before reaching masked_topk."""
-    if selection in ("exact", "pallas"):
+    'hybrid' = the fused scan+top-k kernel (ops/pallas_scan.py) scans bf16
+    operands and keeps the top R, then an fp32-HIGHEST rerank of the R rows
+    restores exact scores/order at bf16 scan cost (the PQ-refine pattern
+    applied to the exact path); indexes route it before reaching
+    masked_topk."""
+    if selection == "exact":
         return selection, 1.0
     if selection.startswith("approx"):
         _, _, rt = selection.partition(":")
@@ -35,7 +36,7 @@ def parse_selection(selection: str) -> tuple[str, float]:
         _, _, r = selection.partition(":")
         return "hybrid", float(r) if r else 0.0
     raise ValueError(
-        f"selection must be exact|pallas|approx[:recall]|hybrid[:R], got {selection!r}"
+        f"selection must be exact|approx[:recall]|hybrid[:R], got {selection!r}"
     )
 
 
@@ -50,11 +51,11 @@ def masked_topk(
     mask: [N] or [B, N] bool — True = candidate is live. Masked-out entries
     get -inf scores (callers detect missing hits via -inf).
 
-    selection: 'exact' uses ``lax.top_k``; 'approx[:recall]' uses the TPU
-    PartialReduce-based ``lax.approx_max_k`` — on a v5e it fuses into the
-    score matmul's epilogue and is 2-60x faster at N ≥ 100k for a measured
-    recall ≥ its target (the idiomatic TPU trade the reference can't make;
-    cf. its lossy SQ8 trade at docs/benchmarks/20260118_p10_14_*.md).
+    selection: 'exact' uses ``lax.top_k``; 'approx[:recall]' uses
+    ``lax.approx_max_k``. On the GPU approx_max_k lowers to an exact
+    sort-based top-k, so 'approx' returns exact results there and gains
+    nothing over 'exact' (its recall target only matters on backends with
+    a partial-reduce implementation).
 
     Returns (values [B, k], indices [B, k]) sorted descending.
     """

@@ -1,10 +1,10 @@
 """Multi-chip execution: mesh helpers, sharded scans, sharded k-means.
 
 The reference is a single-node server with no distribution layer (SURVEY
-§2.1 note, §5.8) — this package is the new surface the TPU build adds:
+§2.1 note, §5.8) — this package is the new surface the device build adds:
 corpus rows sharded over a 1-D device mesh, a 2-D batch × data mesh, or a
-multi-slice slice × data mesh (rows over both axes, top-k merged ICI-first
-then once per slice over DCN — mesh.make_mesh_multislice), per-shard top-k,
+multi-slice slice × data mesh (rows over both axes, top-k merged within a
+slice first, then once per slice — mesh.make_mesh_multislice), per-shard top-k,
 all-gather merge ("sequence parallelism over the database axis", SURVEY
 §5.7/§5.8). Family coverage: Flat (fp32/bf16/sq8),
 IVF-Flat, IVF-PQ (with per-shard exact rerank), HNSW (replicated graph

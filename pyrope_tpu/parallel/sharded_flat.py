@@ -2,7 +2,7 @@
 
 The scaling story (SURVEY §5.7/§5.8, §7.8): corpus rows are sharded over the
 mesh's ``data`` axis; each shard computes local scores + local top-k over its
-rows; the [k]-sized candidate lists ride an ICI ``all_gather`` and every
+rows; the [k]-sized candidate lists ride an ``all_gather`` and every
 shard reduces them to the final top-k (replicated output). Queries stay
 replicated on a 1-D mesh. The k-means build step likewise shards the
 assignment matmul and reduces centroid partial sums with ``psum``.
@@ -59,50 +59,8 @@ def make_sharded_search(mesh: Mesh, metric: Metric, k: int, compute: str | None)
         mask = alive & (grow < ms)
         vals, idx = masked_topk(scores, mask[None, :], k)
         gidx = jnp.where(idx >= 0, idx + base, -1)
-        # tiny [B, k] candidate sets: ICI all-gather, then DCN if multi-slice
-        return hierarchical_merge_topk(vals, gidx, k, mesh)
-
-    q_spec = P(BATCH_AXIS, None) if two_d else P(None, None)
-    out_spec = (
-        (P(BATCH_AXIS, None), P(BATCH_AXIS, None))
-        if two_d
-        else (P(None, None), P(None, None))
-    )
-    fn = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(raxes, None), P(raxes), P(raxes), q_spec, P()),
-        out_specs=out_spec,
-        check_vma=False,
-    )
-    return jax.jit(fn)
-
-
-def make_sharded_pallas_search(mesh: Mesh, metric: Metric, k: int,
-                               row_tile: int):
-    """Sharded FUSED exact scan: each shard runs the single-chip Pallas
-    scan+running-top-k kernel (ops/pallas_scan.pallas_flat_topk) over its
-    own row block — no per-shard [B, rows_local] score materialization —
-    then the [B, k] ICI all_gather merge. The global max_scans budget is
-    rebased per shard (rows are block-sharded, so shard s owns global rows
-    [s·L, (s+1)·L) and its local budget is clip(ms − s·L, 0, L))."""
-    from pyrope_tpu.ops.pallas_scan import pallas_flat_topk
-
-    two_d = BATCH_AXIS in mesh.axis_names
-    raxes = row_axes(mesh)
-
-    def local(vecs, sqnorm, alive, q, ms):
-        rows_local = vecs.shape[0]
-        base = flat_row_shard_index(mesh) * rows_local
-        ms_local = jnp.clip(
-            ms.astype(jnp.int32) - base, 0, rows_local
-        ).reshape(1)
-        bt = min(128, q.shape[0])
-        vals, idx = pallas_flat_topk(
-            q, vecs, sqnorm, alive, ms_local, k, metric,
-            row_tile=row_tile, batch_tile=bt,
-        )
-        gidx = jnp.where(idx >= 0, idx + base, -1)
+        # tiny [B, k] candidate sets: all-gather within a slice, then across
+        # slices on a multi-slice mesh
         return hierarchical_merge_topk(vals, gidx, k, mesh)
 
     q_spec = P(BATCH_AXIS, None) if two_d else P(None, None)
@@ -167,8 +125,7 @@ def sharded_kmeans_step(x, valid, cents, *, metric: Metric, mesh: Mesh):
     replicated new centroids — the 'training step' of an index build.
 
     On a multi-slice mesh rows shard over (slice, data) and the psum names
-    both axes — XLA's hierarchical collective reduces within each slice on
-    ICI before the [K, D] partials cross DCN once per slice.
+    both axes.
     """
     raxes = row_axes(mesh)
 
@@ -180,7 +137,10 @@ def sharded_kmeans_step(x, valid, cents, *, metric: Metric, mesh: Mesh):
             (assign[:, None] == jax.lax.broadcasted_iota(jnp.int32, (1, k), 1))
             & vl[:, None]
         ).astype(jnp.float32)
-        sums = jnp.dot(onehot.T, xl.astype(jnp.float32), preferred_element_type=jnp.float32)
+        # HIGHEST: a default-precision fp32 dot may round x to TF32
+        sums = jnp.dot(onehot.T, xl.astype(jnp.float32),
+                       preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
         counts = jnp.sum(onehot, axis=0)
         sums = jax.lax.psum(sums, raxes)
         counts = jax.lax.psum(counts, raxes)
@@ -202,8 +162,8 @@ class ShardedFlatIndex(FlatIndex):
     ``batch × data`` mesh (queries sharded over ``batch`` too — see
     make_sharded_search), or a multi-slice ``slice × data`` mesh
     (mesh.make_mesh_multislice: rows shard over both axes, the top-k merge
-    goes ICI-then-DCN — multi-slice is a mesh shape here, not a different
-    index). Same host API/semantics as FlatIndex; the slab capacity is
+    goes within slices first — multi-slice is a mesh shape here, not a
+    different index). Same host API/semantics as FlatIndex; the slab capacity is
     padded to a multiple of the row-shard count so shards stay equal.
     """
 
@@ -276,44 +236,16 @@ class ShardedFlatIndex(FlatIndex):
                       dev["alive"], q, ms)
         return fn(dev["vecs"], dev["sqnorm"], dev["alive"], q, ms)
 
-    def _pallas_eligible(self, batch: int) -> bool:
-        """Per-shard fused-kernel eligibility (mirrors the single-chip
-        FlatIndex pallas opt-in: selection='pallas', non-cosine; plus the
-        sharded tile-divisibility of the local row block)."""
-        if self.selection != "pallas" or self.metric == Metric.COSINE:
-            return False
-        if self.storage == "sq8":
-            return False
-        from pyrope_tpu.ops.pallas_scan import pick_row_tile
-
-        rows_local = round_up(self._cap, self._ndev) // self._ndev
-        rt = pick_row_tile(rows_local, self.dim, "float32")
-        return rows_local % rt == 0 and batch % min(128, batch) == 0
-
     def _sharded_fn(self, k: int, batch: int):
         cache = getattr(self, "_fn_cache", None)
         if cache is None:
             cache = self._fn_cache = {}
-        if self.storage == "sq8":
-            kind = "sq8"
-        elif self._pallas_eligible(batch):
-            kind = "pallas"
-        else:
-            kind = "xla"
-        rows_local = round_up(self._cap, self._ndev) // self._ndev
-        key = (k, self.storage, self.metric, kind,
-               rows_local if kind == "pallas" else 0)
+        kind = "sq8" if self.storage == "sq8" else "xla"
+        key = (k, self.storage, self.metric, kind)
         if key not in cache:
             if kind == "sq8":
                 fn = make_sharded_sq8_search(self.mesh, self.metric, k,
                                              self.compute_dtype)
-            elif kind == "pallas":
-                from pyrope_tpu.ops.pallas_scan import pick_row_tile
-
-                fn = make_sharded_pallas_search(
-                    self.mesh, self.metric, k,
-                    pick_row_tile(rows_local, self.dim, "float32"),
-                )
             else:
                 fn = make_sharded_search(self.mesh, self.metric, k,
                                          self.compute_dtype)

@@ -2,8 +2,8 @@
 
 The HNSW beam search is a per-query graph walk — there is no corpus axis to
 shard cheaply (splitting the graph would need cross-shard neighbor hops
-every step, i.e. an all-to-all per beam iteration over ICI). The idiomatic
-TPU layout is therefore **replicate the graph, shard the queries**: each
+every step, i.e. an all-to-all per beam iteration). The idiomatic
+device layout is therefore **replicate the graph, shard the queries**: each
 device runs the identical batched beam program (index/hnsw.py
 beam_search_body) on its slice of the batch; no collectives are needed and
 throughput scales linearly with devices. Memory bound: the graph (vectors +
@@ -174,7 +174,7 @@ class ShardedHnswIndex(HnswIndex):
 
 # ---- corpus-sharded HNSW (VERDICT r4 #7) ------------------------------------
 # The query-sharded class above replicates the graph: fine for throughput,
-# memory-capped at one chip's HBM (~45M vectors at m=16/d=128). The class
+# memory-capped at one device's memory. The class
 # below PARTITIONS the corpus over the mesh — a k-means cell (capacity-
 # balanced) per shard, an independent sub-graph per cell — so graph memory
 # scales with mesh size like the sharded IVF/PQ families. Query = replicate

@@ -5,7 +5,7 @@ round-robin across the mesh's ``data`` axis, so each shard owns an equal
 ~1/ndev slice of *every* list in its own contiguous cluster-major slab
 (local CSR: offsets + lens). A query (replicated) ranks the replicated
 centroids identically on every shard, probes the same top-nprobe lists, and
-scans only its local slices; the [B, k] local candidates ride one ICI
+scans only its local slices; the [B, k] local candidates ride one
 ``all_gather`` and every shard reduces to the final top-k.
 
 Why round-robin rows instead of whole lists per shard: probe selection is
@@ -70,12 +70,10 @@ def roundrobin_layout(lens: np.ndarray, offsets: np.ndarray, nd: int, kpad: int)
     l_pad = int(round_up(max(int(local_lens.max()) if k else 1, 1), 128))
     local_offsets = np.zeros((nd, kpad), np.int32)
     caps = local_lens.sum(axis=1)
-    # tile-friendly rounding (like the single-chip slab_pad): the per-shard
-    # fused Pallas dense kernel needs cap_local % row_tile == 0; extra rows
-    # are alive=False so the XLA kernels ignore them too
-    cap_local = int(round_up(int(caps.max()) if k else 1, 8) + l_pad)
-    cap_local = int(round_up(cap_local, 4096) if cap_local > 4096
-                    else round_up(cap_local, 128))
+    # 128-row rounding like the single-device slab_pad; extra rows are
+    # alive=False so every kernel ignores them
+    cap_local = int(round_up(round_up(int(caps.max()) if k else 1, 8)
+                             + l_pad, 128))
     placements = []
     cursor = np.zeros(nd, np.int64)
     for li in range(k):
@@ -125,9 +123,8 @@ def cluster_layout(lens: np.ndarray, offsets: np.ndarray, nd: int, kpad: int):
     l_pad = int(round_up(max(int(lens[:k].max()) if k else 1, 1), 128))
     local_offsets = np.zeros((nd, kpad), np.int32)
     caps = local_lens.sum(axis=1)
-    cap_local = int(round_up(int(caps.max()) if k else 1, 8) + l_pad)
-    cap_local = int(round_up(cap_local, 4096) if cap_local > 4096
-                    else round_up(cap_local, 128))
+    cap_local = int(round_up(round_up(int(caps.max()) if k else 1, 8)
+                             + l_pad, 128))
     placements = []
     cursor = np.zeros(nd, np.int64)
     for li in range(k):
@@ -210,41 +207,6 @@ def make_sharded_ivf_cluster_probe_search(
     return jax.jit(fn)
 
 
-def shard_tile_windows(crow_l: np.ndarray, local_lens: np.ndarray,
-                       cap_local: int, kpad: int, dim: int = 128):
-    """Per-shard fused-Pallas windowed-kernel eligibility (shared by the
-    sharded IVF-Flat and IVF-PQ _sync): every local slab is cluster-major
-    (cursor construction in roundrobin_layout), so the windowed kernel's
-    per-tile cluster-band tables apply shard-locally — but win_ok must hold
-    on EVERY shard (the shard_map'd kernel is one program). Returns
-    (tile_clo [nd, n_tiles], win_ok, row_tile). Narrow tables
-    (kpad <= PALLAS_IVF_MAX_KPAD) are trivially ok with a zero table."""
-    from pyrope_tpu.ops.pallas_scan import (
-        PALLAS_IVF_MAX_KPAD,
-        padded_probe_width,
-        pick_row_tile,
-        tile_cluster_windows,
-    )
-
-    nd = crow_l.shape[0]
-    # fp32-based dim-aware tile (scoped-vmem; see ops/pallas_scan.pick_row_tile)
-    row_tile = pick_row_tile(cap_local, dim, "float32")
-    n_tiles = max(cap_local // row_tile, 1)
-    tile_clo = np.zeros((nd, n_tiles), np.int32)
-    if kpad <= PALLAS_IVF_MAX_KPAD:
-        return tile_clo, True, row_tile
-    kp_probe = padded_probe_width(kpad)
-    for s in range(nd):
-        tot = int(local_lens[s].sum())
-        clo_s, ok_s = tile_cluster_windows(
-            crow_l[s], tot, cap_local, row_tile, kp_probe
-        )
-        if not ok_s:
-            return tile_clo, False, row_tile
-        tile_clo[s] = clo_s
-    return tile_clo, True, row_tile
-
-
 def make_sharded_ivf_search(
     mesh: Mesh, metric: Metric, k: int, nprobe: int, l_pad: int,
     stride: int, compute: str | None,
@@ -300,7 +262,7 @@ def make_sharded_ivf_dense_search(
     """shard_map'd DENSE scan: each shard runs one full matmul over its own
     cluster-major slab masked by probe membership (see
     pyrope_tpu/index/ivf_flat.py module docstring), then the [B, k] local
-    winners ride the same ICI all_gather merge as the sparse kernel. The
+    winners ride the same all_gather merge as the sparse kernel. The
     local CSR (offsets/lens/crow/pos) is per-shard, so the mask and the
     max_scans budget apply to the shard's own slice of every list."""
     cdtype = None if compute is None else jnp.dtype(compute)
@@ -319,71 +281,6 @@ def make_sharded_ivf_dense_search(
                               compute_dtype=cdtype)
         # masked_topk pads when k exceeds the shard's slab rows
         vals, lrows = masked_topk(jnp.where(mask, scores, -jnp.inf), None, k)
-        gidx = jnp.where(lrows >= 0, shard * stride + lrows, -1)
-        return allgather_merge_topk(vals, gidx, k)
-
-    q_spec = P(BATCH_AXIS, None) if two_d else P(None, None)
-    out_one = P(BATCH_AXIS, None) if two_d else P(None, None)
-    fn = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(
-            P(None, None), P(None),
-            P(DATA_AXIS, None, None), P(DATA_AXIS, None), P(DATA_AXIS, None),
-            P(DATA_AXIS, None), P(DATA_AXIS, None),
-            P(DATA_AXIS, None), P(DATA_AXIS, None),
-            q_spec, P(),
-        ),
-        out_specs=(out_one, out_one),
-        check_vma=False,
-    )
-    return jax.jit(fn)
-
-
-def make_sharded_ivf_dense_pallas_search(
-    mesh: Mesh, metric: Metric, k: int, nprobe: int, stride: int,
-    kpad: int, windowed: bool, row_tile: int,
-):
-    """shard_map'd FUSED dense scan: each shard runs the single-chip Pallas
-    dense-mask kernel (ops/pallas_scan.pallas_ivf_topk[_windowed]) over its
-    own cluster-major slab — tiles stream HBM→VMEM with a [B, k] running
-    top-k, never materializing the per-shard [B, cap_local] score matrix the
-    XLA dense kernel needs — then the [B, k] local winners ride the same ICI
-    all_gather merge. Full-scan semantics only (the caller falls back to the
-    XLA kernels under a max_scans budget). ``windowed`` selects the
-    wide-cluster-table variant; its per-shard tile_clo table is an extra
-    DATA-sharded input."""
-    from pyrope_tpu.index.ivf_flat import probed_table, probed_table_t
-    from pyrope_tpu.ops.pallas_scan import (
-        PALLAS_IVF_WINDOW,
-        pallas_ivf_topk,
-        pallas_ivf_topk_windowed,
-    )
-
-    two_d = BATCH_AXIS in mesh.axis_names
-
-    def local(cents, cvalid, xperm, sqnorm, alive, offsets, lens, crow,
-              tile_clo, q, ms_local):
-        xperm, sqnorm, alive = xperm[0], sqnorm[0], alive[0]
-        offsets, lens, crow = offsets[0], lens[0], crow[0]
-        shard = jax.lax.axis_index(DATA_AXIS)
-        # probe selection is identical on every shard (replicated centroids)
-        probe, _, _ = rank_probes(
-            q, cents, cvalid, offsets, lens, nprobe, ms_local, metric, None,
-        )
-        bt = min(128, q.shape[0])
-        if windowed:
-            probed_t = probed_table_t(probe, kpad, PALLAS_IVF_WINDOW)
-            vals, lrows = pallas_ivf_topk_windowed(
-                q, xperm, sqnorm, alive, crow, probed_t, tile_clo[0], k,
-                metric, row_tile=row_tile, batch_tile=bt,
-            )
-        else:
-            probed = probed_table(probe, kpad)
-            vals, lrows = pallas_ivf_topk(
-                q, xperm, sqnorm, alive, crow, probed, k, metric,
-                row_tile=row_tile, batch_tile=bt,
-            )
         gidx = jnp.where(lrows >= 0, shard * stride + lrows, -1)
         return allgather_merge_topk(vals, gidx, k)
 
@@ -505,10 +402,6 @@ class ShardedIvfFlatIndex(IvfFlatIndex):
             cents[:k] = self._centroids
             cvalid[:k] = True
 
-        tile_clo, win_ok, row_tile = shard_tile_windows(
-            crow_l, local_lens, cap_local, kpad, self.dim
-        )
-
         row3 = NamedSharding(self.mesh, P(DATA_AXIS, None, None))
         row2 = NamedSharding(self.mesh, P(DATA_AXIS, None))
         self._enc_to_perm = enc_to_perm
@@ -522,9 +415,6 @@ class ShardedIvfFlatIndex(IvfFlatIndex):
             "lens": jax.device_put(jnp.asarray(local_lens), row2),
             "crow": jax.device_put(jnp.asarray(crow_l), row2),
             "pos": jax.device_put(jnp.asarray(pos_l), row2),
-            "tile_clo": jax.device_put(jnp.asarray(tile_clo), row2),
-            "win_ok": win_ok,
-            "row_tile": row_tile,
             "kpad": kpad,
             "l_pad": l_pad,
             "stride": stride,
@@ -567,19 +457,12 @@ class ShardedIvfFlatIndex(IvfFlatIndex):
             ms_local = options.max_scans
         else:
             ms_local = (options.max_scans + self._ndev - 1) // self._ndev
-        path = self._resolve_sharded_scan(
-            dev, q.shape[0], nprobe, uncapped=options.max_scans is None,
-        )
+        path = self._resolve_sharded_scan(dev, q.shape[0], nprobe)
         # metric is part of the key: load() may swap self.metric in place
         key = (top_k, nprobe, dev["l_pad"], dev["stride"], self.metric, path)
         fn = self._fn_cache.get(key)
         if fn is None:
-            if path in ("dense-pallas", "dense-pallas-win"):
-                fn = make_sharded_ivf_dense_pallas_search(
-                    self.mesh, self.metric, top_k, nprobe, dev["stride"],
-                    dev["kpad"], path == "dense-pallas-win", dev["row_tile"],
-                )
-            elif path == "dense-xla":
+            if path == "dense-xla":
                 fn = make_sharded_ivf_dense_search(
                     self.mesh, self.metric, top_k, nprobe,
                     dev["stride"], self.compute_dtype,
@@ -596,12 +479,6 @@ class ShardedIvfFlatIndex(IvfFlatIndex):
                     dev["stride"], self.compute_dtype,
                 )
             self._fn_cache[key] = fn
-        if path in ("dense-pallas", "dense-pallas-win"):
-            return fn(
-                dev["cents"], dev["cvalid"], dev["xperm"], dev["sqnorm"],
-                dev["alive"], dev["offsets"], dev["lens"], dev["crow"],
-                dev["tile_clo"], q, device_i32(ms_local),
-            )
         if path == "dense-xla":
             return fn(
                 dev["cents"], dev["cvalid"], dev["xperm"], dev["sqnorm"],
@@ -630,33 +507,15 @@ class ShardedIvfFlatIndex(IvfFlatIndex):
             return max(1, min(self.probe_cap, nprobe))
         return min(nprobe, max(8, 4 * -(-nprobe // self._ndev)))
 
-    def _resolve_sharded_scan(self, dev: dict, batch: int, nprobe: int,
-                              uncapped: bool) -> str:
+    def _resolve_sharded_scan(self, dev: dict, batch: int,
+                              nprobe: int) -> str:
         """Per-shard kernel resolution (analog of IvfFlatIndex._resolve_scan
-        on local shard volumes): 'probe', 'dense-xla', 'dense-pallas', or
-        'dense-pallas-win'. The fused kernels have full-scan semantics, so a
-        max_scans budget falls back to the XLA dense kernel (where the
-        shard-local eff < lens budget applies)."""
-        from pyrope_tpu.index.ivf_flat import pallas_dense_ok
-
-        p_ok = uncapped and pallas_dense_ok(
-            self.selection, self.metric, self.compute_dtype,
-            dev["stride"], dev["kpad"], batch,
-            dev["stride"], dev["stride"], win_ok=dev["win_ok"],
-            dim=self.dim,
-        )
+        on local shard volumes): 'probe' or 'dense-xla'."""
         # mode decided on per-shard local volumes (each shard scans its own
         # slab; stride ≈ local rows)
         mode = pick_scan_mode(self.scan_mode, dev["stride"], nprobe,
-                              dev["l_pad"], batch=batch, pallas_ok=p_ok)
-        if mode != "dense":
-            return "probe"
-        if not p_ok:
-            return "dense-xla"
-        from pyrope_tpu.ops.pallas_scan import PALLAS_IVF_MAX_KPAD
-
-        return ("dense-pallas-win" if dev["kpad"] > PALLAS_IVF_MAX_KPAD
-                else "dense-pallas")
+                              dev["l_pad"], batch=batch)
+        return "dense-xla" if mode == "dense" else "probe"
 
     def describe_scan(self, batch: int, nprobe: Optional[int] = None,
                       max_scans: Optional[int] = None) -> str:
@@ -666,9 +525,7 @@ class ShardedIvfFlatIndex(IvfFlatIndex):
             return "buffer"
         dev = self._sync()
         np_eff = min(nprobe or self.nprobe, dev["k_actual"])
-        return self._resolve_sharded_scan(
-            dev, batch, np_eff, uncapped=max_scans is None,
-        )
+        return self._resolve_sharded_scan(dev, batch, np_eff)
 
     def _decode(self, rows: np.ndarray) -> np.ndarray:
         """Encoded candidates -> global perm rows (-1 stays -1)."""

@@ -6,7 +6,7 @@ axis so each shard owns ~1/ndev of every list in its own contiguous
 cluster-major code slab — but the per-shard scan is the ADC kernel
 (tables from replicated codebooks, gather-free one-hot accumulation).
 At M=4/ksub=256 each shard holds N·4/ndev bytes of codes: a 1B-vector
-corpus fits a 16-chip v5e pod in ~250 MB of codes per chip.
+corpus is 1 GB of codes per device on four devices.
 
 Candidate encoding across shards: shard * stride + local_slab_pos.
 """
@@ -104,7 +104,6 @@ def make_sharded_ivfpq_search(
 def make_sharded_ivfpq_dense_search(
     mesh: Mesh, metric: Metric, k: int, nprobe: int,
     stride: int, probe_metric: Metric, refine_r: int = 0,
-    pallas_path: str = "", kpad: int = 0, row_tile: int = 4096,
 ):
     """shard_map'd DENSE scan. With ``refine_r`` == 0: one shared-slab ADC
     accumulate per shard (pyrope_tpu/index/ivf_pq.py adc_scan_dense) masked
@@ -112,21 +111,10 @@ def make_sharded_ivfpq_dense_search(
     resident, so each shard exact-scores ALL its probed rows directly (see
     _ivfpq_dense_exact_fn — dominates ADC-shortlist→rerank in recall and
     speed; the wide top_k(R) is what made the shortlist slow). Then the
-    [B, k] ICI all_gather merge.
-
-    ``pallas_path`` ('', 'dense-exact-pallas', 'dense-exact-pallas-win')
-    routes the refine>0 exact scan through the fused per-shard kernel
-    (bf16 slab promoted to fp32 in-kernel) — full-scan semantics, so the
-    caller only selects it when max_scans is uncapped."""
-    from pyrope_tpu.index.ivf_flat import probed_table, probed_table_t
-    from pyrope_tpu.ops.pallas_scan import (
-        PALLAS_IVF_WINDOW,
-        pallas_ivf_topk,
-        pallas_ivf_topk_windowed,
-    )
+    [B, k] all_gather merge."""
 
     def local(cents, cvalid, codes, alive, offsets, lens, codebooks,
-              cdot, crow, pos, tile_clo, xraw, xsq, q, ms_local):
+              cdot, crow, pos, xraw, xsq, q, ms_local):
         from pyrope_tpu.index.ivf_flat import dense_probe_mask
         from pyrope_tpu.ops.distance import score_matrix
 
@@ -137,23 +125,7 @@ def make_sharded_ivfpq_dense_search(
         probe, _, eff = rank_probes(
             q, cents, cvalid, offsets, lens, nprobe, ms_local, probe_metric, None
         )
-        if refine_r and pallas_path:
-            bt = min(128, q.shape[0])
-            if pallas_path == "dense-exact-pallas-win":
-                probed_t = probed_table_t(probe, kpad, PALLAS_IVF_WINDOW)
-                vals, lid = pallas_ivf_topk_windowed(
-                    q, xraw[0], xsq[0], alive, crow, probed_t, tile_clo[0],
-                    k, metric, promote_fp32=True,
-                    row_tile=row_tile, batch_tile=bt,
-                )
-            else:
-                probed = probed_table(probe, kpad)
-                vals, lid = pallas_ivf_topk(
-                    q, xraw[0], xsq[0], alive, crow, probed, k, metric,
-                    promote_fp32=True, row_tile=row_tile, batch_tile=bt,
-                )
-            gidx = jnp.where(lid >= 0, shard * stride + lid, -1)
-        elif refine_r:
+        if refine_r:
             mask = dense_probe_mask(probe, eff, crow, pos, alive, cents.shape[0])
             scores = score_matrix(q, xraw[0].astype(jnp.float32), metric,
                                   x_sqnorm=xsq[0])
@@ -180,7 +152,6 @@ def make_sharded_ivfpq_dense_search(
             P(DATA_AXIS, None), P(DATA_AXIS, None),
             P(None, None, None),
             P(DATA_AXIS, None), P(DATA_AXIS, None), P(DATA_AXIS, None),
-            P(DATA_AXIS, None),
             P(DATA_AXIS, None, None), P(DATA_AXIS, None),
             q_spec, P(),
         ),
@@ -279,13 +250,6 @@ class ShardedIvfPqIndex(IvfPqIndex):
                 cdot_l[s, c : c + n_rows] = cdot_global[rows]
             enc_to_perm[s * stride + c : s * stride + c + n_rows] = rows
 
-        # per-shard fused-Pallas eligibility for the refine>0 exact scan
-        from pyrope_tpu.parallel.sharded_ivf import shard_tile_windows
-
-        tile_clo, win_ok, row_tile = shard_tile_windows(
-            crow_l, local_lens, cap_local, kpad, self.dim
-        )
-
         cents = np.zeros((kpad, self.dim), np.float32)
         cvalid = np.zeros(kpad, bool)
         if self._centroids is not None:
@@ -311,9 +275,6 @@ class ShardedIvfPqIndex(IvfPqIndex):
             "pos": jax.device_put(jnp.asarray(pos_l), row2),
             "cdot": jax.device_put(jnp.asarray(cdot_l), row2),
             "codebooks": jnp.asarray(cbs),
-            "tile_clo": jax.device_put(jnp.asarray(tile_clo), row2),
-            "win_ok": win_ok,
-            "row_tile": row_tile,
             "kpad": kpad,
             "l_pad": l_pad,
             "stride": stride,
@@ -364,21 +325,16 @@ class ShardedIvfPqIndex(IvfPqIndex):
             max(top_k, min(self.refine * top_k, dev["stride"]))
             if self.refine > 0 else 0
         )
-        mode, ppath = self._resolve_sharded_scan(
-            dev, q.shape[0], nprobe, search_metric, refine_r,
-            uncapped=options.max_scans is None,
-        )
+        mode = self._resolve_sharded_scan(dev, q.shape[0], nprobe)
         # metric is part of the key: load() may swap self.metric in place
         key = (top_k, nprobe, dev["l_pad"], dev["stride"], self.metric,
-               refine_r, mode, ppath)
+               refine_r, mode)
         fn = self._fn_cache.get(key)
         if fn is None:
             if mode == "dense":
                 fn = make_sharded_ivfpq_dense_search(
                     self.mesh, search_metric, top_k, nprobe,
                     dev["stride"], probe_metric, refine_r,
-                    pallas_path=ppath, kpad=dev["kpad"],
-                    row_tile=dev["row_tile"],
                 )
             else:
                 fn = make_sharded_ivfpq_search(
@@ -390,7 +346,7 @@ class ShardedIvfPqIndex(IvfPqIndex):
             return fn(
                 dev["cents"], dev["cvalid"], dev["codes"], dev["alive"],
                 dev["offsets"], dev["lens"], dev["codebooks"],
-                dev["cdot"], dev["crow"], dev["pos"], dev["tile_clo"],
+                dev["cdot"], dev["crow"], dev["pos"],
                 dev["xraw"], dev["xsqnorm"], q, device_i32(ms_local),
             )
         return fn(
@@ -399,44 +355,24 @@ class ShardedIvfPqIndex(IvfPqIndex):
             dev["xraw"], dev["xsqnorm"], q, device_i32(ms_local),
         )
 
-    def _resolve_sharded_scan(
-        self, dev: dict, batch: int, nprobe: int, search_metric: Metric,
-        refine_r: int, uncapped: bool,
-    ) -> tuple[str, str]:
-        """(mode, pallas_path) on per-shard local volumes. pallas_path is
-        '' (XLA/ADC kernels), 'dense-exact-pallas', or
-        'dense-exact-pallas-win' — the fused kernels are full-scan only, so
-        a max_scans budget keeps the XLA dense kernel.
+    def _resolve_sharded_scan(self, dev: dict, batch: int,
+                              nprobe: int) -> str:
+        """Scan mode ('dense' or 'probe') on per-shard local volumes.
 
         With ``refine > 0`` auto mode resolves by LOCAL index size only —
         never by batch — matching the single-chip batch-invariance contract
         (IvfPqIndex._resolve_scan: dense and probe return different hit
         sets when reranking, so the same index + query must not flip modes
         across batch sizes; only the OOM guard may demote)."""
-        from pyrope_tpu.index.ivf_flat import (
-            DENSE_MAX_ELEMS,
-            DENSE_MAX_ROWS,
-            pallas_dense_ok,
-        )
-        from pyrope_tpu.ops.pallas_scan import PALLAS_IVF_MAX_KPAD
+        from pyrope_tpu.index.ivf_flat import DENSE_MAX_ROWS, dense_max_elems
 
-        p_ok = refine_r > 0 and uncapped and pallas_dense_ok(
-            "auto", search_metric, None, dev["stride"], dev["kpad"],
-            batch, dev["stride"], dev["stride"], win_ok=dev["win_ok"],
-            dim=self.dim,
-        )
         if self.scan_mode == "auto" and self.refine > 0:
             mode = "dense" if dev["stride"] <= DENSE_MAX_ROWS else "probe"
-            if not p_ok and batch * dev["stride"] > DENSE_MAX_ELEMS:
+            if batch * dev["stride"] > dense_max_elems():
                 mode = "probe"  # OOM guard outranks batch-invariance
-        else:
-            mode = pick_scan_mode(self.scan_mode, dev["stride"], nprobe,
-                                  dev["l_pad"], batch=batch, pallas_ok=p_ok)
-        if mode != "dense" or not p_ok:
-            return mode, ""
-        return mode, ("dense-exact-pallas-win"
-                      if dev["kpad"] > PALLAS_IVF_MAX_KPAD
-                      else "dense-exact-pallas")
+            return mode
+        return pick_scan_mode(self.scan_mode, dev["stride"], nprobe,
+                              dev["l_pad"], batch=batch)
 
     def describe_scan(self, batch: int, nprobe: Optional[int] = None,
                       max_scans: Optional[int] = None) -> str:
@@ -445,22 +381,12 @@ class ShardedIvfPqIndex(IvfPqIndex):
             return "buffer"
         dev = self._sync()
         np_eff = min(nprobe or self.nprobe, dev["k_actual"])
-        search_metric = (
-            Metric.INNER_PRODUCT if self.metric == Metric.COSINE
-            else self.metric
-        )
-        refine_r = (
-            max(1, min(self.refine, dev["stride"])) if self.refine > 0 else 0
-        )
-        mode, ppath = self._resolve_sharded_scan(
-            dev, batch, np_eff, search_metric, refine_r,
-            uncapped=max_scans is None,
-        )
+        mode = self._resolve_sharded_scan(dev, batch, np_eff)
         if mode != "dense":
             return "probe-adc+rerank" if self.refine > 0 else "probe-adc"
         if self.refine == 0:
             return "dense-adc"
-        return ppath or "dense-exact-xla"
+        return "dense-exact-xla"
 
     def _decode(self, rows: np.ndarray) -> np.ndarray:
         return np.where(rows >= 0, self._enc_to_perm[np.maximum(rows, 0)], -1)

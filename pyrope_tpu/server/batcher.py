@@ -1,10 +1,11 @@
 """Micro-batching query scheduler.
 
-New TPU-first runtime component with no reference analog: the reference
-serves each RESP query with its own CPU scan (concurrency = thread pool,
-ref: Extensions/VectorCommandSet.cs one command per connection), which on a
-TPU would waste the MXU — a [1, N] matmul uses one row of a 128-wide
-systolic array and every dispatch pays the host→device link once.
+New device-first runtime component with no reference analog: the
+reference serves each RESP query with its own CPU scan (concurrency =
+thread pool, ref: Extensions/VectorCommandSet.cs one command per
+connection), which on an accelerator would waste the matmul units — a
+[1, N] matmul is a matrix-vector product — and every dispatch pays the
+host→device link once.
 
 The batcher turns concurrent single-query requests into one [B, N] device
 batch: the first arrival for a (index, top_k, options) key becomes the
@@ -72,9 +73,9 @@ class MicroBatcher:
         fills) before closing. Closed-loop serving ping-pongs otherwise —
         the cohort whose batch just completed re-sends while the next group
         dispatches without it, so avg_batch locks at ~half the offered
-        concurrency (measured: 32 of 64). The linger gives the finishing
-        cohort one response-turnaround to merge in. Use on high-RTT links
-        (tunnel ~30 ms); keep 0 when co-located — it taxes every batch.
+        concurrency. The linger gives the finishing cohort one
+        response-turnaround to merge in. Use on high-RTT links; keep 0
+        when co-located — it taxes every batch.
         The hold only runs when a slot was actually acquired: after the
         gate-timeout escape hatch (wedged device) or with no gate at all
         there is no device-pressure signal, and lingering would only delay

@@ -684,7 +684,7 @@ class PyropeEngine:
         *,
         api_key: Optional[str] = None,
     ) -> WriteResponse:
-        """Bulk load (TPU-first addition: one device transfer, one epoch
+        """Bulk load (device-first addition: one device transfer, one epoch
         bump — the reference can only stream single VEC.UPSERTs). Counts as
         ONE request against QPS/concurrency quotas (it is one dispatch)."""
         ok, lease, code, msg = self.quota.try_begin_request(tenant)

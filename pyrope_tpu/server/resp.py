@@ -10,7 +10,7 @@ rebuild implements RESP2 directly on asyncio — any Redis client
 
 Blocking device work (index search) runs in a thread pool via
 ``asyncio.to_thread`` so the event loop keeps servicing connections while
-the TPU computes.
+the device computes.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Rebuild of the reference's ``SemanticModelTrainer``
 (ref: src/Pyrope.AISidecar/semantic_model.py:9-56 — sklearn KMeans(256)
 over sampled vectors, POSTed to ``/v1/indexes/{t}/{i}/centroids``).
 
-TPU-first difference: clustering runs on the device with the engine's own
+Device-first difference: clustering runs on the device with the engine's own
 jitted Lloyd's k-means (``pyrope_tpu.ops.kmeans``) instead of sklearn —
 the sidecar shares the accelerator-backed op library.
 """

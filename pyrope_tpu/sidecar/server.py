@@ -271,8 +271,8 @@ def serve(
 
 def main() -> None:
     # The sidecar is a host-side process: if anything pulls in jax (e.g. the
-    # TPU k-means in semantic_model), pin it to CPU so it never contends
-    # with the serving process for the exclusive TPU chip.
+    # device k-means in semantic_model), pin it to CPU so it never contends
+    # with the serving process for the card.
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     try:
         import jax

@@ -81,8 +81,8 @@ def synthetic_zipf(
 ) -> np.ndarray:
     """Mixture-of-Gaussians corpus with Zipf(alpha) cluster sizes: the
     largest cluster holds ~n/H(K) rows (14% of 1M at K=1000, vs 0.1%
-    balanced), stressing padded-CSR l_pad blowup and the windowed kernel's
-    per-tile cluster spans in ways synthetic_clustered cannot."""
+    balanced), stressing padded-CSR l_pad blowup in ways
+    synthetic_clustered cannot."""
     rng = np.random.default_rng(seed)
     centers = rng.random((n_clusters, dim)).astype(np.float32)
     sizes = zipf_cluster_sizes(n, n_clusters, alpha, seed)

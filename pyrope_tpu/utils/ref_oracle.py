@@ -4,7 +4,7 @@ The reference publishes NO recall numbers (SURVEY §4), so parity claims need
 an oracle: a from-scratch numpy re-implementation of the reference's search
 *algorithms* at the same hyperparameters, run on the same data. bench.py
 runs it next to every ANN config and commits a ``recall_ref`` column so
-"TPU recall >= reference recall" is measured, not asserted (VERDICT r1 #1).
+"device recall >= reference recall" is measured, not asserted (VERDICT r1 #1).
 
 Semantics mirrored (cited):
 - k-means: random-sample init, <=10 Lloyd iterations, empty cluster keeps

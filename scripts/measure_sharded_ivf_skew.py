@@ -3,7 +3,7 @@
 (VERDICT r4 #9: the docs/sharded_ivf_layouts.md table should be measured,
 not argued).
 
-Runs ENTIRELY on the CPU backend (never touches the TPU): builds the real
+Runs ENTIRELY on the CPU backend (never touches the card): builds the real
 IVF partition (seeded k-means), ranks the real probe sets per query, and
 computes each shard's PADDED ROWS SCANNED exactly as the kernels do —
 round-robin shards scan nprobe slices of l_pad_rr each (query-independent

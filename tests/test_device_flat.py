@@ -37,9 +37,14 @@ def test_parity_with_flat_index():
 
 
 def test_pallas_selection_matches_ground_truth():
+    """The default selection (the XLA exact scan) matches brute-force
+    ground truth; 'pallas' and 'hybrid' are not selections of this index."""
     vecs = make_corpus(n=100)
     q = make_corpus(n=4, dim=16, seed=2)
-    dev = DeviceFlatIndex(jnp.asarray(vecs), "L2", selection="pallas")
+    for bad in ("pallas", "hybrid"):
+        with pytest.raises(ValueError):
+            DeviceFlatIndex(jnp.asarray(vecs), "L2", selection=bad)
+    dev = DeviceFlatIndex(jnp.asarray(vecs), "L2")
     truth = ground_truth(vecs, q, 5)
     hits = dev.search_batch(q, 5)
     got = np.array([[int(h.id) for h in row] for row in hits])
@@ -165,7 +170,7 @@ def test_stats_and_memory():
     st = dev.get_stats()
     assert st.count == 40 and st.dim == 16 and st.metric == Metric.L2
     assert dev.memory_bytes() > 0
-    assert dev.describe_scan() == "device-pallas"
+    assert dev.describe_scan() == "device-exact"
 
 
 def test_bad_inputs():

@@ -1,7 +1,7 @@
 """FlatIndex behavior tests.
 
 Mirrors the reference suite Vector/BruteForceVectorIndexTests.cs +
-Vector/VectorMathTests.cs (SIMD-vs-scalar agreement becomes TPU-vs-numpy
+Vector/VectorMathTests.cs (SIMD-vs-scalar agreement becomes device-vs-numpy
 agreement) and Vector/ScalarQuantizerTests.cs.
 """
 
@@ -168,7 +168,7 @@ def test_scan_exports_live_entries():
 
 
 class TestApproxSelection:
-    """lax.approx_max_k selection mode (TPU PartialReduce top-k)."""
+    """lax.approx_max_k selection mode (an exact top-k on the GPU)."""
 
     def test_approx_matches_exact_on_small_n(self):
         # N <= 1024 falls back to exact top_k inside masked_topk
@@ -377,11 +377,11 @@ def test_hybrid_cosine_falls_back_to_exact():
 
 
 def test_hybrid_routes_large_batches_to_fp32_pallas():
-    from pyrope_tpu.index.flat import HYBRID_MAX_BATCH
-
+    """Hybrid keeps the bf16 shortlist kernel at every batch size (the
+    batch crossover existed for a merge that is gone); large batches
+    still match the exact scan."""
     hy, ex, vecs = _hybrid_pair(1200, 8)
     assert hy.describe_scan(batch=64) == "flat-pallas-hybrid"
-    assert hy.describe_scan(batch=HYBRID_MAX_BATCH + 1) == "flat-pallas"
-    # above the crossover the fp32 Pallas scan runs — still exact
-    q = np.random.default_rng(9).normal(size=(HYBRID_MAX_BATCH + 8, 8))
+    assert hy.describe_scan(batch=1024) == "flat-pallas-hybrid"
+    q = np.random.default_rng(9).normal(size=(264, 8))
     _assert_same_hits(hy, ex, q.astype(np.float32), 5)

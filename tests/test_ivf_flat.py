@@ -194,9 +194,9 @@ def test_pick_scan_mode_auto_thresholds():
     # transients: a batch eligible for the fused Pallas kernel (tile
     # streaming, [B, k] scratch) stays dense at any batch size
     assert pick_scan_mode("auto", 262_144, 3, 1152, batch=4096,
-                          pallas_ok=True) == "dense"
+                          fused=True) == "dense"
     assert pick_scan_mode("auto", 8_000_000, 96, 8192, batch=64,
-                          pallas_ok=True) == "dense"
+                          fused=True) == "dense"
     # the sparse gather blowup is PER QUERY: a bigger batch tips wide-probe
     # configs to dense (one slab pass amortizes over ~256 queries)
     assert pick_scan_mode("auto", 1_000_000, 96, 1408, batch=8) == "probe"
@@ -215,22 +215,23 @@ def test_scan_mode_snapshot_roundtrip(tmp_path):
 
 
 def test_selection_pallas_probe_mode_raises():
-    """selection='pallas' pins the fused dense kernel; a scan that resolves
-    to probe mode (or the XLA dense fallback) must raise, never silently
-    swap kernels (review finding: probe-mode resolution was unchecked)."""
+    """selection='pallas' (the exact fused kernel, which lost to XLA on the
+    H100) is rejected at construction; the exact default scans with the
+    XLA kernels in either scan mode, budgets included."""
     import pytest
 
     from pyrope_tpu.types import SearchOptions
     from pyrope_tpu.utils.datasets import synthetic
 
+    with pytest.raises(ValueError, match="selection"):
+        IvfFlatIndex(16, "L2", nlist=8, nprobe=2, selection="pallas")
     base = synthetic(2048, 16)
-    idx = IvfFlatIndex(16, "L2", nlist=8, nprobe=2, selection="pallas",
-                       scan_mode="probe")
+    idx = IvfFlatIndex(16, "L2", nlist=8, nprobe=2, scan_mode="probe")
     idx.add_batch([str(i) for i in range(2048)], base)
     idx.build()
-    with pytest.raises(ValueError, match="selection='pallas'"):
-        idx.search_batch(base[:8], 5)
-    # a max_scans budget is an explicit opt-out: XLA fallback is allowed
+    assert idx.describe_scan(8) == "probe"
+    idx.scan_mode = "dense"
+    assert idx.describe_scan(8, max_scans=512) == "dense-xla"
     hits = idx.search_batch(base[:8], 5, SearchOptions(max_scans=512))
     assert hits[0]
 
@@ -268,8 +269,8 @@ def test_selection_hybrid_validation():
 
 
 def test_selection_hybrid_windowed():
-    """Wide cluster table (kpad > PALLAS_IVF_MAX_KPAD) routes hybrid through
-    the windowed kernel; hit sets still match the exact XLA dense scan."""
+    """A wide cluster table (nlist 600) routes hybrid through the same fused
+    kernel; hit sets still match the exact XLA dense scan."""
     from pyrope_tpu.utils.datasets import synthetic
 
     n, nlist = 8192, 600
@@ -282,40 +283,49 @@ def test_selection_hybrid_windowed():
     for idx in (hy, ex):
         idx.add_batch(ids, base)
         idx.build()
-    path = hy.describe_scan(8)
+    assert hy.describe_scan(8) == "dense-pallas-hybrid"
+    assert ex.describe_scan(8) == "dense-xla"
     q = base[:8] + 0.01
     ha = hy.search_batch(q, 10)
     hb = ex.search_batch(q, 10)
     for ra, rb in zip(ha, hb):
         assert [h.id for h in ra] == [h.id for h in rb]
-    if path != "dense-pallas-win-hybrid":  # span overflow fell back (exact anyway)
-        assert path in ("dense-xla", "probe")
 
 
 def test_dim768_default_dense_scan_no_tile_crash():
-    """Regression (ADVICE r4): pallas_dense_ok gated tile divisibility with
-    min(4096, npad) while the kernels tile with pick_row_tile (1024 at
-    dim 768) — IvfFlatIndex(dim=768, n=2000) crashed at query time
-    ('pad shapes to tiles: n=2432%1024') on the default dense scan.
-    Eligibility must be checked against the kernel's own row tile."""
+    """Regression (ADVICE r4): IvfFlatIndex(dim=768, n=2000) once crashed at
+    query time on the default dense scan because the slab (2432 rows) was
+    not a multiple of the kernel's row tile. The fused kernel masks its
+    last tile, so any slab length runs."""
     n, dim = 2000, 768
     base = synthetic(n, dim)
     idx = IvfFlatIndex(dim, "L2", nlist=16, nprobe=4)
     idx.add_batch([str(i) for i in range(n)], base)
     idx.build()
-    # npad=2432 is 128-aligned but not 1024-aligned: pallas is ineligible
-    assert "pallas" not in idx.describe_scan(8)
+    assert idx.describe_scan(8) == "dense-xla"
     hits = idx.search_batch(base[:8] + 1e-3, 10)
     assert hits[0][0].id == "0"
 
 
 def test_pallas_dense_ok_dim_aware():
-    from pyrope_tpu.index.ivf_flat import pallas_dense_ok
-
-    big = 10**9
-    # 2432 rows: dim 768 shrinks the row tile to 1024 (vmem budget) and
-    # 2432 % 1024 != 0 -> ineligible; dim 128 keeps the npad-clamped tile
-    assert not pallas_dense_ok("auto", Metric.L2, None, 2432, 16, 8, big,
-                               2000, dim=768)
-    assert pallas_dense_ok("auto", Metric.L2, None, 2432, 16, 8, big,
-                           2000, dim=128)
+    """The hybrid dense route (the fused kernel) runs at any width, slab
+    length and cluster-table width — here d=768 over a 2432-row slab —
+    and cosine hybrid falls back to the exact XLA kernel."""
+    n, dim = 2000, 768
+    base = synthetic(n, dim)
+    ids = [str(i) for i in range(n)]
+    hy = IvfFlatIndex(dim, "L2", nlist=16, nprobe=4, selection="hybrid",
+                      scan_mode="dense")
+    ex = IvfFlatIndex(dim, "L2", nlist=16, nprobe=4, scan_mode="dense")
+    for idx in (hy, ex):
+        idx.add_batch(ids, base)
+        idx.build()
+    assert hy.describe_scan(8) == "dense-pallas-hybrid"
+    q = base[:8] + 1e-3
+    for ra, rb in zip(hy.search_batch(q, 10), ex.search_batch(q, 10)):
+        assert [h.id for h in ra] == [h.id for h in rb]
+    cos = IvfFlatIndex(16, "COSINE", nlist=4, selection="hybrid",
+                       scan_mode="dense")
+    cos.add_batch([str(i) for i in range(200)], synthetic(200, 16))
+    cos.build()
+    assert cos.describe_scan(8) == "dense-xla"

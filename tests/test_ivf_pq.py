@@ -342,8 +342,9 @@ class TestSq8resStorage:
     def test_sq8res_dense_routes_to_pallas_kernel(self):
         base, _ = self._clustered(n=2048)
         idx = self._build(base, refine_storage="sq8res", scan_mode="dense")
-        assert idx.describe_scan(8) == "dense-sq8-pallas", idx.describe_scan(8)
-        # a max_scans budget falls back to the XLA decomposition kernel
+        # the residual-SQ8 slab is scanned by the XLA decomposition kernel,
+        # with or without a max_scans budget
+        assert idx.describe_scan(8) == "dense-sq8-xla", idx.describe_scan(8)
         assert idx.describe_scan(8, max_scans=100) == "dense-sq8-xla"
 
     def test_sq8res_probe_mode_reranks_off_codes(self):
@@ -398,8 +399,9 @@ class TestSq8resStorage:
         assert a == b and "42" in a
 
     def test_sq8res_windowed_wide_cluster_table(self):
-        """nlist > 512 routes to the windowed sq8 kernel; hit sets must
-        match the probe-mode rerank (same reconstruction scores)."""
+        """A wide cluster table (nlist 600) on the XLA sq8 dense scan: hit
+        sets must match the probe-mode rerank (same reconstruction
+        scores)."""
         rng = np.random.default_rng(15)
         base = rng.normal(size=(20000, 16)).astype(np.float32)
         ids = [str(i) for i in range(20000)]
@@ -411,7 +413,7 @@ class TestSq8resStorage:
         for ix in (a, b):
             ix.add_batch(ids, base)
             ix.build()
-        assert a.describe_scan(8) == "dense-sq8-pallas-win", a.describe_scan(8)
+        assert a.describe_scan(8) == "dense-sq8-xla", a.describe_scan(8)
         ra = a.search_batch(q, 10)
         rb = b.search_batch(q, 10)
         for ha, hb in zip(ra, rb):

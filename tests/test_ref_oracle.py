@@ -1,6 +1,6 @@
 """Recall parity vs the reference-semantics CPU oracle (VERDICT r1 #1).
 
-Every ANN family's TPU implementation must score at least as much recall@10
+Every ANN family's device implementation must score at least as much recall@10
 as the reference's algorithm at identical data + hyperparameters. The oracle
 (pyrope_tpu/utils/ref_oracle.py) re-implements the reference's probe/ADC/
 sequential-HNSW semantics in numpy with cited file:line sources.
@@ -23,7 +23,7 @@ def _setup():
     return base, queries, truth
 
 
-def _tpu_recall(idx, base, queries, truth, opts):
+def _device_recall(idx, base, queries, truth, opts):
     idx.add_batch([str(i) for i in range(N)], base)
     idx.build()
     res = idx.search_batch(queries, K, opts)
@@ -49,12 +49,12 @@ class TestIvfParity:
         # effect is measured by bench.py's recall_ref column, not here
         idx = pt.IvfFlatIndex(DIM, "L2", nlist=50, nprobe=3,
                               train_init="sample")
-        r_tpu = _tpu_recall(idx, base, queries, truth, SearchOptions())
+        r_dev = _device_recall(idx, base, queries, truth, SearchOptions())
         # identical algorithm + seeds -> near-identical partition (fp
         # arithmetic order differs) -> recall equal within the two-hit band
         # AND never materially below the reference
-        assert abs(r_tpu - r_ref) < 0.02, (r_tpu, r_ref)
-        assert r_tpu >= r_ref - 0.01, (r_tpu, r_ref)
+        assert abs(r_dev - r_ref) < 0.02, (r_dev, r_ref)
+        assert r_dev >= r_ref - 0.01, (r_dev, r_ref)
 
     def test_high_nprobe_approaches_exact(self):
         base, queries, truth = _setup()
@@ -79,9 +79,9 @@ class TestIvfPqParity:
         r_ref = recall_at_k(ref_rows, truth, K)
 
         idx = pt.IvfPqIndex(DIM, "L2", nlist=20, pq_m=4, ksub=64, refine=64)
-        r_tpu = _tpu_recall(idx, base, queries, truth, SearchOptions(nprobe=20))
+        r_dev = _device_recall(idx, base, queries, truth, SearchOptions(nprobe=20))
         # the rerank stage must clearly dominate the reference's pure ADC
-        assert r_tpu > r_ref + 0.1, (r_tpu, r_ref)
+        assert r_dev > r_ref + 0.1, (r_dev, r_ref)
 
     def test_tpu_pure_adc_matches_reference_adc(self):
         base, queries, truth = _setup()
@@ -96,10 +96,10 @@ class TestIvfPqParity:
 
         idx = pt.IvfPqIndex(DIM, "L2", nlist=20, pq_m=8, ksub=64, refine=0,
                             train_init="sample")  # parity premise (see IVF test)
-        r_tpu = _tpu_recall(idx, base, queries, truth, SearchOptions(nprobe=20))
+        r_dev = _device_recall(idx, base, queries, truth, SearchOptions(nprobe=20))
         # same algorithm at same params; small codebook drift (different
         # Lloyd arithmetic order) may move recall a little either way
-        assert abs(r_tpu - r_ref) < 0.05, (r_tpu, r_ref)
+        assert abs(r_dev - r_ref) < 0.05, (r_dev, r_ref)
 
 
 class TestHnswParity:
@@ -117,10 +117,10 @@ class TestHnswParity:
         ids = np.array(
             [[int(h.id) for h in hits] + [-1] * (K - len(hits)) for hits in res]
         )
-        r_tpu = recall_at_k(ids, truth, K)
+        r_dev = recall_at_k(ids, truth, K)
         # the batched device beam must match the sequential reference search
         # on the identical graph at equal ef (VERDICT r1 #4)
-        assert r_tpu >= r_ref - 0.02, (r_tpu, r_ref)
+        assert r_dev >= r_ref - 0.02, (r_dev, r_ref)
 
 
 class TestSq8Parity:
@@ -158,6 +158,6 @@ class TestSq8Parity:
         r_ref = recall_at_k(ref_rows, truth, K)
 
         idx = pt.FlatIndex(DIM, "L2", storage="sq8")
-        r_tpu = _tpu_recall(idx, base, queries, truth, SearchOptions())
-        assert r_tpu >= r_ref, (r_tpu, r_ref)
-        assert r_tpu >= 0.9, r_tpu  # affine SQ8 stays near-exact
+        r_dev = _device_recall(idx, base, queries, truth, SearchOptions())
+        assert r_dev >= r_ref, (r_dev, r_ref)
+        assert r_dev >= 0.9, r_dev  # affine SQ8 stays near-exact

@@ -503,9 +503,9 @@ class TestShardedDenseScan:
 
 
 class TestShardedPallasDense:
-    """The sharded dense scan rides the fused Pallas kernels per shard
-    (narrow one-hot and windowed wide-table variants), with the same hit
-    sets as the single-chip index and the XLA fallback under budgets."""
+    """The sharded dense scan (the XLA dense kernel per shard, for narrow
+    and wide cluster tables, with or without a max_scans budget) returns
+    the same hit sets as the single-device index."""
 
     def test_narrow_path_and_parity(self):
         from pyrope_tpu.index.ivf_flat import IvfFlatIndex
@@ -517,8 +517,7 @@ class TestShardedPallasDense:
                                  nprobe=8)
         sh.add_batch(ids, base)
         sh.build()
-        assert sh.describe_scan(64, 8) == "dense-pallas"
-        # a max_scans budget needs eff < lens semantics: XLA fallback
+        assert sh.describe_scan(64, 8) == "dense-xla"
         assert sh.describe_scan(64, 8, max_scans=100) == "dense-xla"
 
         ref = IvfFlatIndex(32, "L2", nlist=16, nprobe=8)
@@ -531,10 +530,8 @@ class TestShardedPallasDense:
             assert [h.id for h in a[i]] == [h.id for h in b[i]]
 
     def test_windowed_path_and_parity(self):
-        """kpad > PALLAS_IVF_MAX_KPAD with multi-tile shards: per-shard
-        cluster bands fit the window, so the sharded scan routes to the
-        windowed fused kernel (nlist=640 -> kpad 640; 131k rows -> 16k-row
-        shards, 4 tiles of 4096 spanning ~160 clusters each)."""
+        """A wide cluster table (nlist=640) with 16k-row shards (131k rows)
+        on the per-shard dense kernel."""
         from pyrope_tpu.index.ivf_flat import IvfFlatIndex
         from pyrope_tpu.parallel import ShardedIvfFlatIndex, make_mesh
 
@@ -545,7 +542,7 @@ class TestShardedPallasDense:
                                  nprobe=64)
         sh.add_batch(ids, base)
         sh.build()
-        assert sh.describe_scan(64, 64) == "dense-pallas-win"
+        assert sh.describe_scan(64, 64) == "dense-xla"
         ref = IvfFlatIndex(16, "L2", nlist=640, nprobe=64)
         ref.add_batch(ids, base)
         ref.build()
@@ -560,9 +557,9 @@ class TestShardedPallasDense:
 
 
 def test_sharded_ivfpq_pallas_exact_scan_parity():
-    """The sharded IVF-PQ refine>0 dense path rides the fused per-shard
-    kernel (bf16/fp32 rerank slab promoted in-kernel) with the same hit
-    sets as the single-chip index; max_scans budgets keep the XLA kernel."""
+    """The sharded IVF-PQ refine>0 dense path exact-scans the per-shard
+    rerank slab with the same hit sets as the single-device index, with
+    or without a max_scans budget."""
     from pyrope_tpu.index.ivf_pq import IvfPqIndex
     from pyrope_tpu.parallel import make_mesh
     from pyrope_tpu.parallel.sharded_ivf_pq import ShardedIvfPqIndex
@@ -573,7 +570,7 @@ def test_sharded_ivfpq_pallas_exact_scan_parity():
                            ksub=64, nprobe=8, refine=16)
     sh.add_batch(ids, base)
     sh.build()
-    assert sh.describe_scan(64, 8) == "dense-exact-pallas"
+    assert sh.describe_scan(64, 8) == "dense-exact-xla"
     assert sh.describe_scan(64, 8, max_scans=100) == "dense-exact-xla"
     ref = IvfPqIndex(32, "L2", nlist=16, pq_m=4, ksub=64, nprobe=8,
                      refine=16)
@@ -587,15 +584,17 @@ def test_sharded_ivfpq_pallas_exact_scan_parity():
 
 
 def test_sharded_flat_pallas_parity_and_budget_rebase():
-    """selection='pallas' routes the sharded exact scan through the fused
-    per-shard kernel; the global max_scans budget is rebased to each
-    shard's block (shard s owns rows [s*L, (s+1)*L)), matching the
-    single-chip first-ms-slab-rows semantics exactly."""
+    """The sharded exact scan matches the single-device index; the global
+    max_scans budget is rebased to each shard's block (shard s owns rows
+    [s*L, (s+1)*L)), matching the first-ms-slab-rows semantics exactly.
+    selection='pallas' is no longer a selection."""
     from pyrope_tpu.parallel import ShardedFlatIndex, make_mesh
 
     base = synthetic(5000, 32)
     ids = [str(i) for i in range(5000)]
-    sh = ShardedFlatIndex(32, "L2", mesh=make_mesh(8), selection="pallas")
+    with pytest.raises(ValueError):
+        ShardedFlatIndex(32, "L2", mesh=make_mesh(8), selection="pallas")
+    sh = ShardedFlatIndex(32, "L2", mesh=make_mesh(8))
     sh.add_batch(ids, base)
     ref = FlatIndex(32, "L2")
     ref.add_batch(ids, base)
@@ -751,13 +750,13 @@ class TestMultisliceMesh:
             assert [h.id for h in x] == [h.id for h in y]
 
     def test_multislice_pallas_matches_exact(self):
-        n, d = 4096, 32  # 512 rows/shard — tile-divisible
+        n, d = 4096, 32  # 512 rows/shard
         base = synthetic(n, d)
         ref = FlatIndex(d, selection="exact")
-        sh = ShardedFlatIndex(d, selection="pallas", mesh=self._mesh())
+        sh = ShardedFlatIndex(d, selection="exact", mesh=self._mesh())
         for ix in (ref, sh):
             ix.add_batch([str(i) for i in range(n)], base)
-        assert sh._pallas_eligible(8)
+        assert sh._sharded_fn(10, 8)[1] == "xla"
         q = synthetic(8, d, seed=9)
         a = ref.search_batch(q, 10)
         b = sh.search_batch(q, 10)
